@@ -6,10 +6,8 @@ sweep table:
 
     python -m analysis.rk45_rejects [tol ...]
 
-Result (2026-08-21, v5e, tol 1e-8, 5040 rays): mean reject fraction
-3.8%, p90 15%, p99 19.5% — rejection waste is minor; the RK4 <-> RK45
-throughput ratio is stage-count (7 vs 4 evals) plus controller ops, not
-rejections. Recorded per round in BENCH_NOTES via bench.py.
+The reject fraction is a property of the controller and the tolerance,
+not of the device; bench.py reports it beside the RK45 rate.
 """
 
 from __future__ import annotations
@@ -24,22 +22,24 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    from raytrace_tpu.config import apply_platform_overrides
+    from raytrace_tpu.config import enable_compilation_cache
+    from raytrace_tpu.ops import use_march_kernel
     from raytrace_tpu.ops.integrate import StepControl
     from raytrace_tpu.sources import PointSourceGrid, point_source
 
-    apply_platform_overrides()
+    enable_compilation_cache()
     tols = [float(t) for t in (argv or sys.argv[1:])] or [1e-6, 1e-8, 1e-10]
     spin = 0.998
     grid = PointSourceGrid.from_steps(0.05, 0.05)
     rays = point_source((0.0, 5.0, 1e-3, 0.0), V=0.0, spin=spin, grid=grid)
-    if jax.default_backend() != "cpu":
+    if use_march_kernel("rk45"):
+        # measure the controller in the precision the GPU march runs in
         rays = jax.tree.map(
             lambda a: a.astype(jnp.float32) if a.dtype == jnp.float64 else a,
             rays,
         )
     print(f"canonical lamppost workload, {int((np.asarray(rays.steps) == 0).sum())} "
-          f"rays, backend={jax.default_backend()}")
+          f"rays, device={jax.devices()[0].device_kind}")
     for tol in tols:
         stats = rk45_reject_stats(
             rays, jnp.asarray(spin, rays.r.dtype),

@@ -11,7 +11,7 @@ plus wall time per tolerance.
 The reference's documented result (docs/session_2026-03-01.md:235-258):
 the deviation is FLAT in tolerance (RMS 11.8-13.4% over 1e-6..1e-10) —
 the photon-sphere separatrix disagreement is topological, not
-accuracy-driven. This script reproduces that diagnostic for the TPU
+accuracy-driven. This script reproduces that diagnostic for this
 framework.
 
 Usage:
@@ -65,9 +65,9 @@ def sweep(tols=(1e-6, 1e-7, 1e-8, 1e-9, 1e-10), dcosalpha=0.05, dbeta=0.05,
 
 
 def main(argv=None):
-    from raytrace_tpu.config import Config, apply_platform_overrides
+    from raytrace_tpu.config import Config, enable_compilation_cache
 
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv if argv is not None else sys.argv[1:])
     dca = cfg.get("dcosalpha", float, 0.05)
     db = cfg.get("dbeta", float, 0.05)

@@ -1,4 +1,4 @@
-"""raytrace_tpu — TPU-native general-relativistic ray tracing in the Kerr spacetime.
+"""raytrace_tpu — general-relativistic ray tracing in the Kerr spacetime on the GPU.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
 CPU code (wilkinsdr/raytrace_cpu, itself a port of the CUDAKerr GPU code of
@@ -12,7 +12,8 @@ functions, outflow line profiles).
 
 Design (see SURVEY.md §7):
   * Rays are a struct-of-arrays batch (`RayBatch`) marched in lock-step by
-    masked fixed-shape loops — the TPU-native replacement for the reference's
+    masked fixed-shape loops, or by a GPU kernel that keeps each ray in
+    registers — the data-parallel replacement for the reference's
     per-ray OpenMP loop (`src/raytracer/raytracer.cpp:104`).
   * All physics is pure functions over jnp arrays (geometry/), unit-tested
     against closed forms.

@@ -12,7 +12,7 @@ Capability of the reference caustic apps (src/caustic/):
     sphere at r_lim (thetalim disabled; grid-neighbour differences only).
 
 All the post-processing (Jacobians, order gates, suppression) is pure array
-arithmetic — ideal TPU work; the reference's per-pixel loops become shifted
+arithmetic — data-parallel device work; the reference's per-pixel loops become shifted
 slices.
 """
 
@@ -24,7 +24,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from raytrace_tpu.config import Config, apply_platform_overrides
+from raytrace_tpu.config import Config, enable_compilation_cache
 from raytrace_tpu.destinations import DiscWithISCO, FlatPlane, ThetaLimit
 from raytrace_tpu.geometry import isco_radius
 from raytrace_tpu.io import FITSOutput
@@ -225,7 +225,7 @@ def compute(
 
     ``dtype`` is the working precision of the whole traced pipeline
     (sources, destination parameters, march); pass jnp.float32 to run the
-    explicit-f32 path the TPU executes. With a ``mesh`` the bundle march
+    explicit-f32 path the GPU kernel executes. With a ``mesh`` the bundle march
     runs data-parallel over the mesh's ``rays`` axis
     (parallel.sharded_caustic_trace); the Jacobian post-processing below
     stays host-side either way.
@@ -399,7 +399,7 @@ _EXTENSIONS = {
 
 def _main(target):
     def main(argv=None):
-        apply_platform_overrides()
+        enable_compilation_cache()
         cfg = Config(argv)
         outfile = cfg.get("outfile", str)
         dist = cfg.get("dist", float)

@@ -20,7 +20,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from raytrace_tpu.config import Config, apply_platform_overrides
+from raytrace_tpu.config import Config, enable_compilation_cache
 from raytrace_tpu.geometry import integrate_disc_area_bins, isco_radius
 from raytrace_tpu.geometry.kerr import bl_to_cartesian
 from raytrace_tpu.io import TextOutput
@@ -184,7 +184,7 @@ def _main(variant):
 
 
 def _run_main(argv, variant):
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str)
     source = cfg.get_array("source", float, 4)

@@ -17,7 +17,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from raytrace_tpu.config import Config, apply_platform_overrides
+from raytrace_tpu.config import Config, enable_compilation_cache
 from raytrace_tpu.geometry import isco_radius, keplerian_omega
 from raytrace_tpu.io import TextOutput
 from raytrace_tpu.ops import trace_auto
@@ -41,7 +41,7 @@ def main_to_disc(argv=None):
     """HEALPix lamppost -> per-annulus illumination with equal solid-angle
     pixel weights (centre rays; the corner rays carry the bundle
     distortion diagnostics)."""
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str)
     spin = cfg.get("spin", float)
@@ -85,7 +85,7 @@ def main_to_disc(argv=None):
 def main_disc_photonfrac(argv=None):
     """Disc-surface HEALPix source -> return/escape/capture fractions with
     exact solid-angle weighting."""
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str, "")
     spin = cfg.get("spin", float)

@@ -26,7 +26,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from raytrace_tpu.config import Config, apply_platform_overrides
+from raytrace_tpu.config import Config, enable_compilation_cache
 from raytrace_tpu.destinations import DiscWithISCO, FlatDisc, ThetaLimit
 from raytrace_tpu.geometry import isco_radius
 from raytrace_tpu.geometry.kerr import bl_to_cartesian
@@ -164,7 +164,7 @@ def compute(
     (imageplane_disc_image.cpp:166-176).
 
     ``dtype`` is the working precision of the traced pipeline; pass
-    jnp.float32 to run the explicit-f32 path the TPU executes. With a
+    jnp.float32 to run the explicit-f32 path the GPU kernel executes. With a
     ``mesh`` the whole step (march + redshift + per-shard pixel
     accumulation + psum map merge) runs data-parallel over the mesh's
     ``rays`` axis (parallel.sharded_disc_image) — the multi-chip twin of
@@ -223,7 +223,7 @@ def compute(
 
 def _main(variant):
     def main(argv=None):
-        apply_platform_overrides()
+        enable_compilation_cache()
         cfg = Config(argv)
         outfile = cfg.get("outfile", str)
         dist = cfg.get("dist", float)

@@ -27,7 +27,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from raytrace_tpu.config import Config, apply_platform_overrides
+from raytrace_tpu.config import Config, enable_compilation_cache
 from raytrace_tpu.geometry import isco_radius, keplerian_omega
 from raytrace_tpu.io import FITSOutput, TextOutput
 from raytrace_tpu.ops import StepControl, trace_auto
@@ -119,7 +119,7 @@ def _trace_fates(cfg, rays, spin, grid):
 
 def main_sky(argv=None):
     """Direction-grid sky map of photon fates (pointsource_sky.cpp)."""
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str)
     grid = _grid_from_cfg(cfg)
@@ -149,7 +149,7 @@ def main_sky(argv=None):
 
 def main_sky_discfrac(argv=None):
     """Integrated escape/disc/capture fractions (pointsource_sky_discfrac.cpp)."""
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str, "")
     grid = _grid_from_cfg(cfg)
@@ -168,7 +168,7 @@ def main_sky_discfrac(argv=None):
 def main_angdist(argv=None):
     """Angular emission distribution over local cos(alpha) with per-bin
     fates and mean launch energy shift (angdist_* capability)."""
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str)
     grid = _grid_from_cfg(cfg, d_default=0.02)
@@ -204,7 +204,7 @@ def main_angdist(argv=None):
 
 def main_raystart(argv=None):
     """Initial ray-state dump (raystart_jetpoint.cpp capability)."""
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str)
     grid = _grid_from_cfg(cfg, d_default=0.1)
@@ -228,7 +228,7 @@ def main_solid_angle(argv=None):
     """Solid-angle closure of the direction grid: sum(dcosalpha * dbeta)
     over live cells must equal the covered solid angle
     (source_solid_angle.cpp capability)."""
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     grid = _grid_from_cfg(cfg, d_default=0.05)
     spin = cfg.get("spin", float, 0.9)
@@ -246,7 +246,7 @@ def main_to_disc(argv=None):
     """Per-annulus illumination fraction / redshift / emissivity
     (pointsource_to_disc.cpp — subsumed by the emissivity app; kept for
     parity with raw ray-fraction output)."""
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str)
     from raytrace_tpu.apps.emissivity import compute

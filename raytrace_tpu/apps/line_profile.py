@@ -17,7 +17,7 @@ import sys
 
 import numpy as np
 
-from raytrace_tpu.config import Config, apply_platform_overrides
+from raytrace_tpu.config import Config, enable_compilation_cache
 from raytrace_tpu.io import TextOutput, read_fits
 
 
@@ -46,7 +46,7 @@ def line_profile_from_maps(flux, enshift, counts, e_rest=6.4, n_en=200,
 def main(argv=None):
     """rt-line-profile: either --image=<disc_image.fits> (post-process) or a
     full trace using the disc-image parameters."""
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str)
     e_rest = cfg.get("line_en", float, 6.4)

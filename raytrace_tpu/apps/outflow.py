@@ -24,7 +24,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from raytrace_tpu.config import Config, apply_platform_overrides
+from raytrace_tpu.config import Config, enable_compilation_cache
 from raytrace_tpu.io import FITSOutput, TextOutput
 from raytrace_tpu.io.spectrum import read_spectrum
 from raytrace_tpu.ops.mapper import MapperGrid, average_maps, cell_volumes, map_rays
@@ -94,7 +94,7 @@ def _run_outflow(cfg):
 
 def main(argv=None):
     """Per-ray emission/absorption spectra (outflow.cpp)."""
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str)
     grid, bins, emis, absorb, _ = _run_outflow(cfg)
@@ -112,7 +112,7 @@ def main(argv=None):
 
 def main_ent(argv=None):
     """Summed spectrum plus the (energy, time) response (outflow_ent.cpp)."""
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str)
     grid, bins, emis, absorb, resp = _run_outflow(cfg)
@@ -128,7 +128,7 @@ def main_ent(argv=None):
 def main_spectrum(argv=None):
     """Wind profile folded through an input line spectrum
     (outflow_spectrum.cpp)."""
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str)
     specfile = cfg.get("spectrum", str)
@@ -150,7 +150,7 @@ def main_spectrum(argv=None):
 
 def main_pointsource_mapper(argv=None):
     """Lamppost -> 3-D illumination map (pointsource_mapper.cpp)."""
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str)
     source = cfg.get_array("source", float, 4)
@@ -219,7 +219,7 @@ def main_pointsource_mapper(argv=None):
 def main_emis_bin(argv=None):
     """Wind emissivity binned through the image-plane Mapper
     (outflow_emis_bin.cpp)."""
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str)
     rays, grid, spin, dist = _image_plane_rays(cfg)

@@ -24,7 +24,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from raytrace_tpu.config import Config, apply_platform_overrides
+from raytrace_tpu.config import Config, enable_compilation_cache
 from raytrace_tpu.io import TextOutput
 
 
@@ -122,7 +122,7 @@ def _compute(
 
 
 def main(argv=None):
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str, "pcyg.dat")
     out = compute(

@@ -27,8 +27,8 @@ import numpy as np
 
 import jax
 
-from raytrace_tpu.config import Config, apply_platform_overrides
-from raytrace_tpu.ops import StepControl, trace_auto
+from raytrace_tpu.config import Config, enable_compilation_cache
+from raytrace_tpu.ops import StepControl, trace_auto, use_march_kernel
 from raytrace_tpu.rays import RAY_STATUS_STEPLIM
 from raytrace_tpu.sources import PointSourceGrid, point_source
 
@@ -40,8 +40,9 @@ def run_method(rays, spin, method, *, r_max, steplim, ctrl,
     """Time one integrator; returns a stats dict."""
     import jax.numpy as jnp
 
-    on_tpu = jax.default_backend() != "cpu"
-    if on_tpu:
+    if use_march_kernel(method):
+        # the kernel marches in f32: hand it f32 rays so the timing holds
+        # no dtype casts
         dtype = jnp.float32
         rays = jax.tree.map(
             lambda a: a.astype(dtype) if a.dtype == jnp.float64 else a, rays
@@ -53,14 +54,12 @@ def run_method(rays, spin, method, *, r_max, steplim, ctrl,
     run = lambda: trace_auto(
         rays, s, method=method, r_max=r_max, steplim=steplim, ctrl=ctrl,
     )
-    out = run()
-    _ = float(out.r.sum())  # block on the warm-up / compile
+    out = jax.block_until_ready(run())  # warm-up / compile
 
     best = np.inf
     for _ in range(max(1, repeats)):
         t0 = time.perf_counter()
-        out = run()
-        _ = float(out.r.sum())
+        out = jax.block_until_ready(run())
         best = min(best, time.perf_counter() - t0)
 
     live = np.asarray(rays.steps) >= 0
@@ -101,7 +100,7 @@ def step_histogram(steps, width=60, n_bins=12):
 
 
 def main(argv=None):
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     spin = cfg.get("spin", float, 0.998)
     source = (cfg.get_array("source", float, 4)
@@ -116,7 +115,7 @@ def main(argv=None):
     grid = PointSourceGrid.from_steps(dca, db)
     rays = point_source(tuple(source), V=0.0, spin=spin, grid=grid)
     print(f"integrator perf test: {grid.n_rays} rays, spin {spin}, "
-          f"source r = {source[1]}, backend {jax.default_backend()}")
+          f"source r = {source[1]}, device {jax.devices()[0].device_kind}")
 
     ctrl = StepControl()
     results = []

@@ -24,7 +24,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from raytrace_tpu.config import Config, apply_platform_overrides
+from raytrace_tpu.config import Config, enable_compilation_cache
 from raytrace_tpu.geometry import isco_radius, keplerian_omega
 from raytrace_tpu.io import TextOutput
 from raytrace_tpu.ops import StepControl, trace_auto
@@ -91,7 +91,7 @@ def photon_fractions(
 def main_photonfrac(argv=None):
     """Return/escape/capture fractions per launch radius
     (disc_source_photonfrac.cpp)."""
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str)
     spin = cfg.get("spin", float)
@@ -131,7 +131,7 @@ def main_photonfrac(argv=None):
 
 def main_photonfrac_r(argv=None):
     """Returning flux binned by landing radius (disc_source_photonfrac_r.cpp)."""
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str)
     spin = cfg.get("spin", float)
@@ -174,7 +174,7 @@ def main_photonfrac_r(argv=None):
 def main_return_angdist(argv=None):
     """Angular distribution of launch directions that return
     (disc_source_return_angdist.cpp)."""
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str)
     spin = cfg.get("spin", float)

@@ -36,30 +36,30 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
-from raytrace_tpu.config import Config, apply_platform_overrides
+from raytrace_tpu import pytree
+from raytrace_tpu.config import Config, enable_compilation_cache
 from raytrace_tpu.io import TextOutput
 
 
-@struct.dataclass
+@pytree.dataclass
 class WindParams:
     """XSPEC-ordered disc-wind parameters (disc_wind.cpp:16-30)."""
 
-    line_en: jnp.ndarray = struct.field(default=1.0)
-    vinf: jnp.ndarray = struct.field(default=0.1)  # units of c
-    tau_tot: jnp.ndarray = struct.field(default=1.0)
-    wind_angle: jnp.ndarray = struct.field(default=1.0)  # cos of opening angle
-    incl: jnp.ndarray = struct.field(default=0.0)  # radians
-    turb: jnp.ndarray = struct.field(default=0.1)  # fraction of vinf
-    beta: jnp.ndarray = struct.field(default=1.0)
-    alpha1: jnp.ndarray = struct.field(default=1.0)
-    alpha2: jnp.ndarray = struct.field(default=1.0)
-    w0: jnp.ndarray = struct.field(default=0.01)
-    rout: jnp.ndarray = struct.field(default=10.0)
-    z: jnp.ndarray = struct.field(default=0.0)
-    continuum: bool = struct.field(pytree_node=False, default=True)
-    line_emis: bool = struct.field(pytree_node=False, default=True)
+    line_en: jnp.ndarray = 1.0
+    vinf: jnp.ndarray = 0.1  # units of c
+    tau_tot: jnp.ndarray = 1.0
+    wind_angle: jnp.ndarray = 1.0  # cos of opening angle
+    incl: jnp.ndarray = 0.0  # radians
+    turb: jnp.ndarray = 0.1  # fraction of vinf
+    beta: jnp.ndarray = 1.0
+    alpha1: jnp.ndarray = 1.0
+    alpha2: jnp.ndarray = 1.0
+    w0: jnp.ndarray = 0.01
+    rout: jnp.ndarray = 10.0
+    z: jnp.ndarray = 0.0
+    continuum: bool = pytree.static_field(default=True)
+    line_emis: bool = pytree.static_field(default=True)
 
 
 def _w(r, p: WindParams):
@@ -222,7 +222,7 @@ def pcyg_sei_profile(v_grid, vinf=0.1, tau_tot=1.0, turb=0.1, beta=1.0,
 
 
 def main_disc_wind(argv=None):
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str, "disc_wind.dat")
     p = WindParams(
@@ -261,7 +261,7 @@ def main_disc_wind(argv=None):
 
 
 def main_pcyg_sei(argv=None):
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str, "pcyg_sei.dat")
     n_en = cfg.get("Nen", int, 200)

@@ -13,7 +13,7 @@ import sys
 
 import numpy as np
 
-from raytrace_tpu.config import Config, apply_platform_overrides
+from raytrace_tpu.config import Config, enable_compilation_cache
 from raytrace_tpu.geometry import keplerian_omega
 from raytrace_tpu.ops.history import dump_trajectories, trace_with_history
 from raytrace_tpu.destinations import ThetaLimit
@@ -27,7 +27,7 @@ from raytrace_tpu.sources import (
 
 def main(argv=None):
     """Lamppost trajectory dump (trace_rays.cpp)."""
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str)
     source = cfg.get_array("source", float, 4)
@@ -73,7 +73,7 @@ def main_imageplane(argv=None):
     Note the reference has a ctor argument-order bug here (tol passed into
     the phi0 slot, trace_rays_imageplane.cpp:58); we pass phi0 correctly.
     """
-    apply_platform_overrides()
+    enable_compilation_cache()
     cfg = Config(argv)
     outfile = cfg.get("outfile", str)
     dist = cfg.get("dist", float)
@@ -114,7 +114,7 @@ def _main_moving(kind):
     trace_rays_vel.cpp capability)."""
 
     def main(argv=None):
-        apply_platform_overrides()
+        enable_compilation_cache()
         cfg = Config(argv)
         outfile = cfg.get("outfile", str)
         source = (cfg.get_array("source", float, 4)

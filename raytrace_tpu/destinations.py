@@ -5,7 +5,7 @@ stopping criteria consulted after every integrator step, a step-size cap to
 stop the adaptive integrator overshooting the surface, and the 4-velocity
 field of the material at the surface (for redshift calculations).
 
-TPU-native design: destinations are flax struct pytrees whose parameters
+Design: destinations are pytree dataclasses (raytrace_tpu.pytree) whose parameters
 (theta_lim, r_isco, ...) are traced arrays — so gradients flow through them —
 while the *choice* of destination is static Python polymorphism resolved at
 trace time (no virtual dispatch, no lax.switch).
@@ -19,8 +19,8 @@ never stops on theta (used with an outer radial limit only).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
 
+from raytrace_tpu import pytree
 from raytrace_tpu.geometry.kerr import keplerian_omega, metric_coeffs
 
 _INF = jnp.inf
@@ -42,7 +42,7 @@ def _keplerian_four_velocity(r, theta, spin, V=None):
 
 
 class Destination:
-    """Interface; concrete destinations are flax structs implementing these."""
+    """Interface; concrete destinations are pytree dataclasses implementing these."""
 
     def reached(self, r, theta, phi, prev_theta):
         raise NotImplementedError
@@ -58,12 +58,12 @@ class Destination:
         return _keplerian_four_velocity(r, theta, spin)
 
 
-@struct.dataclass
+@pytree.dataclass
 class ThetaLimit(Destination):
     """Stop on a polar-angle limit — the reference's thetalim mode and its
     FlatDiscDestination (ray_destination.h:85-102) in one."""
 
-    theta_lim: jnp.ndarray = struct.field(default=jnp.pi / 2)
+    theta_lim: jnp.ndarray = jnp.pi / 2
 
     def reached(self, r, theta, phi, prev_theta):
         tl = self.theta_lim
@@ -87,7 +87,7 @@ class ThetaLimit(Destination):
 FlatDisc = ThetaLimit
 
 
-@struct.dataclass
+@pytree.dataclass
 class DiscWithISCO(Destination):
     """Equatorial annulus r in [r_isco, r_out]; rays inside the ISCO or beyond
     r_out pass through (ray_destination.h:115-152). Crossing-aware: a ray
@@ -95,8 +95,8 @@ class DiscWithISCO(Destination):
     from either side."""
 
     r_isco: jnp.ndarray
-    r_out: jnp.ndarray = struct.field(default=-1.0)
-    theta_lim: jnp.ndarray = struct.field(default=jnp.pi / 2)
+    r_out: jnp.ndarray = -1.0
+    theta_lim: jnp.ndarray = jnp.pi / 2
 
     def _in_annulus(self, r):
         inside = r >= self.r_isco
@@ -123,7 +123,7 @@ class DiscWithISCO(Destination):
         return jnp.where(applicable, lim, inf)
 
 
-@struct.dataclass
+@pytree.dataclass
 class FlatPlane(Destination):
     """Flat lensing source plane perpendicular to the observer line of sight,
     z_s gravitational radii behind the hole (ray_destination.h:172-204).
@@ -134,8 +134,8 @@ class FlatPlane(Destination):
     """
 
     incl: jnp.ndarray
-    phi0: jnp.ndarray = struct.field(default=0.0)
-    z_s: jnp.ndarray = struct.field(default=100.0)
+    phi0: jnp.ndarray = 0.0
+    z_s: jnp.ndarray = 100.0
 
     def projection(self, r, theta, phi):
         return r * (
@@ -161,7 +161,7 @@ class FlatPlane(Destination):
         return x_s, y_s
 
 
-@struct.dataclass
+@pytree.dataclass
 class SphericalShell(Destination):
     """Stop on r >= r_shell — an explicit far-sphere destination (the
     reference achieves this with thetalim=0 plus the rlim termination;
@@ -178,7 +178,7 @@ class SphericalShell(Destination):
         return jnp.where(out, lim, jnp.full_like(pr, _INF))
 
 
-@struct.dataclass
+@pytree.dataclass
 class RadialVelocityField(Destination):
     """Never-stopping destination carrying a purely radial observer velocity
     field, for redshifts of material moving radially at dr/dt = v (the

@@ -146,8 +146,7 @@ def integrate_disc_area_bins(
     """Rest-frame areas of many [r_lo_i, r_hi_i) bins at once.
 
     Vectorised twin of `integrate_disc_area` over a batch of bins: one
-    (n_bins, n_sub) evaluation instead of a Python loop of per-bin calls —
-    essential when dispatch latency matters (remote TPU backends).
+    (n_bins, n_sub) evaluation instead of a Python loop of per-bin calls.
     """
     r_lo = jnp.asarray(r_lo, dtype=jnp.result_type(r_lo, 1.0))
     r_hi = jnp.asarray(r_hi, dtype=r_lo.dtype)

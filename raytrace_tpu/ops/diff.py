@@ -376,7 +376,7 @@ def line_profile_from_xy(spin, incl_deg, x, y, dead=None, *, dist=500.0,
     sharded over the ray mesh axis, ``dead`` marks padding rows (excluded
     from the profile), and the ray construction is all-traced (gradients
     flow through spin AND incl). Traced construction computes the starting
-    conditions in the working dtype — on TPU that is f32, adequate for
+    conditions in the working dtype — in f32 that is adequate for
     dist up to ~1e3 (sources/imageplane.py's precision envelope); the
     far-field f64-seeded path is the grid-based wrapper below.
     """

@@ -1,6 +1,6 @@
 """Batched null-geodesic integration in the Kerr spacetime.
 
-The TPU-native replacement for the reference's per-ray propagators
+The batched replacement for the reference's per-ray propagators
 (``src/raytracer/raytracer.cpp``): instead of an OpenMP loop over rays each
 running its own data-dependent while loop, the whole ray batch is marched in
 lock-step by one ``lax.while_loop`` whose body advances every ray one step
@@ -141,7 +141,7 @@ def _k1_stage(st: RayBatch, spin, rates=None):
 
     r_flip = (rates.rdot_sq <= 0) & st.r_was_positive & ~theta_flip
     rdot_sign = jnp.where(r_flip, -st.rdot_sign, st.rdot_sign)
-    # boolean select via logic ops (Mosaic cannot lower select_n on i1)
+    # boolean select via logic ops (no select_n on booleans)
     r_was_positive = (theta_flip & st.r_was_positive) | (~theta_flip & (rates.rdot_sq > 0))
 
     # pr is taken with the *new* radial sign (the flip happens before the
@@ -289,7 +289,7 @@ def _commit(st: RayBatch, spin, dest, rlim, horizon, steplim, horizon_eps, commi
 
 def _flag(mask, flag):
     """Status-bit contribution as int32 (a bare Python int in jnp.where
-    becomes int64 under x64, which Mosaic cannot lower)."""
+    becomes int64 under x64, which the f32 kernel must not see)."""
     return jnp.where(mask, jnp.int32(flag), jnp.int32(0))
 
 
@@ -299,10 +299,14 @@ def _safe_div(num, den):
     The bound is the dtype's smallest normal so it never changes a nonzero
     denominator; both branches are cast to den's dtype (a bare Python-float
     jnp.where would weak-promote the whole expression to f64 under x64 —
-    breaking the f32 Pallas path).
+    breaking the f32 kernel path). Both signed bounds are host constants:
+    the Triton lowering cannot negate a literal.
     """
-    t = jnp.asarray(jnp.finfo(den.dtype).tiny, den.dtype)
-    safe = jnp.where(jnp.abs(den) < t, jnp.where(den < 0, -t, t), den)
+    tiny = jnp.finfo(den.dtype).tiny
+    t = jnp.asarray(tiny, den.dtype)
+    safe = jnp.where(
+        jnp.abs(den) < t, jnp.where(den < 0, jnp.asarray(-tiny, den.dtype), t), den
+    )
     return num / safe
 
 
@@ -610,8 +614,8 @@ def _pack_rates(r):
     """FSAL carry layout: only the GeodesicRates fields the next
     iteration's k1 stage and status flags consume. cos_t and rhosq are
     byproducts nothing downstream reads — carrying them through every
-    while-loop iteration (two extra (rows, 128) f32 vregs in the Mosaic
-    kernel) would be pure pressure."""
+    while-loop iteration (two extra registers per ray in the GPU kernel)
+    would be pure pressure."""
     return (r.pt, r.pr, r.ptheta, r.pphi, r.thetadot_sq, r.rdot_sq,
             r.sin_t, r.inv_rhosq)
 
@@ -708,7 +712,7 @@ def trace(
         surface, raytracer.h:152-162); defaults to the event horizon.
       max_iters: hard bound on lock-step iterations (defaults to steplim
         plus 25% headroom for RK45 rejection retries).
-      unroll: body repetitions per while-loop iteration (TPU pipelining knob).
+      unroll: body repetitions per while-loop iteration.
     """
     if dest is None:
         dest = ThetaLimit(jnp.pi / 2)
@@ -813,8 +817,8 @@ def _trace_fused_xla(
     # rk45 dt seeding); every phase below resumes.
     out = _fresh_propagation_state(rays, spin, horizon, method, ctrl)
 
-    def phase(batch, s, iters, rows, _unroll):
-        # rows is a Pallas block-height knob; the XLA engine ignores it
+    def phase(batch, s, iters, _block, _unroll):
+        # block is the GPU kernel's launch shape; the XLA engine ignores it
         return trace(
             batch, s, method=method, dest=dest, r_max=r_max, steplim=steplim,
             ctrl=ctrl, boundary=boundary, max_iters=iters, unroll=unroll,
@@ -869,8 +873,8 @@ def trace_compacted(
     total = steplim + steplim // 4 + 16
     if schedule is None:
         schedule = tuple(
-            (it, None if w is None else max(w, min_batch), rows, u)
-            for it, w, rows, u in auto_schedule(
+            (it, None if w is None else max(w, min_batch), block, u)
+            for it, w, block, u in auto_schedule(
                 rays.n_rays, total, open_iters=phase_iters
             )
         )
@@ -899,7 +903,7 @@ def _trace_phased_progress(
     horizon = horizon_radius(spin) if boundary is None else boundary
     out = _fresh_propagation_state(rays, spin, horizon, method, ctrl)
 
-    def phase(batch, s, iters, rows, _unroll):
+    def phase(batch, s, iters, _block, _unroll):
         return trace(
             batch, s, method=method, dest=dest, r_max=r_max, steplim=steplim,
             ctrl=ctrl, boundary=boundary, max_iters=iters, unroll=unroll,

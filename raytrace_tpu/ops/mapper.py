@@ -9,7 +9,7 @@ per-cell proper volume sqrt(-g_rr g_thth g_phph) dr dtheta dphi
 (mapper.cpp:110-338). The cell-averaged (time, redshift, N/volume) maps
 are the Green's function for X-ray reverberation modelling.
 
-TPU-native: the 3-D histogram lives in the while-loop carry and every
+Batched: the 3-D histogram lives in the while-loop carry and every
 lock-step iteration scatter-adds the (masked) cell-entry events for the
 whole batch.
 

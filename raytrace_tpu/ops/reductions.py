@@ -1,4 +1,4 @@
-"""On-device binned reductions — the TPU-native replacement for the
+"""On-device binned reductions — the data-parallel replacement for the
 reference apps' serial per-ray histogram loops (e.g. emissivity.cpp:96-126).
 
 Everything is a masked segment-sum over the ray axis: rays outside the mask

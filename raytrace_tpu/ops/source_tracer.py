@@ -25,8 +25,8 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax import lax
-from flax import struct
 
+from raytrace_tpu import pytree
 from raytrace_tpu.destinations import ThetaLimit
 from raytrace_tpu.geometry.kerr import horizon_radius
 from raytrace_tpu.ops.integrate import StepControl, _euler_rk4_body
@@ -34,7 +34,7 @@ from raytrace_tpu.ops.mapper import _local_redshift
 from raytrace_tpu.rays import RayBatch
 
 
-@struct.dataclass
+@pytree.dataclass
 class WindModel:
     """Emitting-wind description (parameters traced; gradients flow).
 
@@ -44,12 +44,12 @@ class WindModel:
     continuity density rho = 1/(r^2 |v|).
     """
 
-    v0: jnp.ndarray = struct.field(default=0.1)
-    r_in: jnp.ndarray = struct.field(default=10.0)
-    r_out: jnp.ndarray = struct.field(default=50.0)
-    theta_min: jnp.ndarray = struct.field(default=0.5)
-    theta_max: jnp.ndarray = struct.field(default=jnp.pi / 2)
-    motion: int = struct.field(pytree_node=False, default=1)  # radial
+    v0: jnp.ndarray = 0.1
+    r_in: jnp.ndarray = 10.0
+    r_out: jnp.ndarray = 50.0
+    theta_min: jnp.ndarray = 0.5
+    theta_max: jnp.ndarray = jnp.pi / 2
+    motion: int = pytree.static_field(default=1)  # radial
 
     def in_region(self, r, theta, phi):
         return (
@@ -66,12 +66,12 @@ class WindModel:
         return 1.0 / (r * r * jnp.abs(self.velocity(r)))
 
 
-@struct.dataclass
+@pytree.dataclass
 class SphericalStop:
     """Stop rays entering a sphere of radius R centred on the origin —
     the opaque central X-ray source (outflow.cpp:17-32)."""
 
-    radius: jnp.ndarray = struct.field(default=0.0)
+    radius: jnp.ndarray = 0.0
 
     def __call__(self, t, r, theta, phi):
         return r < self.radius

@@ -1,8 +1,8 @@
 """Real multi-process SPMD exercise: N CPU processes under jax.distributed.
 
-The single untested layer between the virtual-device dryrun and a real pod
-is process-spanning mesh mechanics (jax.distributed.initialize, global
-device ordering, cross-process collectives on the DCN path). This script
+The single untested layer between the virtual-device dryrun and a real
+multi-host run is process-spanning mesh mechanics (jax.distributed.initialize,
+global device ordering, cross-process collectives). This script
 spins up two OS processes, each owning half of a virtual 8-device CPU
 mesh, and runs the canonical sharded gradient step
 (``sharded_emissivity_gradient``: per-shard forward+backward + psum
@@ -20,9 +20,8 @@ Skips gracefully (exit 0, "skipped": true in the JSON) where the jax build
 does not support multi-process CPU collectives.
 
 The reference has no distributed execution at all (SURVEY.md §2.6); this
-validates the TPU-native framework's multi-host story on commodity
-hardware, exactly as jax.distributed would be used on a real TPU pod
-(where initialize() picks up the pod runtime automatically).
+validates the framework's multi-host story on commodity hardware, exactly
+as jax.distributed would be used across GPU hosts.
 """
 
 from __future__ import annotations
@@ -35,7 +34,7 @@ import sys
 
 # Topology: RT_MPC_PROCS processes x RT_MPC_DEVS virtual CPU devices each
 # (defaults 2x4; the round-5 artifact runs 4x2 to exercise >2-way
-# DCN-analogue collectives). The single-process reference always uses the
+# cross-process collectives). The single-process reference always uses the
 # same total device count, so the mesh numerics are directly comparable.
 DEVS_PER_PROC = int(os.environ.get("RT_MPC_DEVS", "4"))
 NPROC = int(os.environ.get("RT_MPC_PROCS", "2"))
@@ -81,7 +80,7 @@ def _worker() -> None:
 
     # line-profile fitting step across the process boundary: the in-graph
     # psum of partial profiles (inside value_and_grad) rides the
-    # inter-process path here, not just intra-process ICI
+    # inter-process path here, not just the intra-process one
     fit = _fit_step_case(mesh)
     result = {
         "value": float(val),

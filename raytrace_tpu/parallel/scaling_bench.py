@@ -15,8 +15,8 @@ Run multi-host (one process per host, before anything touches jax):
 On CPU the mesh is virtual (XLA_FLAGS=--xla_force_host_platform_device_count)
 and wall-clock efficiency is meaningless (shards share the host) — the run
 then only validates mechanics. The workload is embarrassingly parallel with
-a single psum per observable, so on real ICI the scaling loss is bounded by
-the one collective plus load imbalance between ray shards.
+a single psum per observable, so across real cards the scaling loss is
+bounded by the one collective plus load imbalance between ray shards.
 """
 
 from __future__ import annotations

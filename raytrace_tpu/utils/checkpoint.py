@@ -4,7 +4,7 @@ The reference has no checkpointing of ray state (SURVEY.md §5 — only the
 Mapper's binary map save/load, mapper.cpp:284-301). Here the whole RayBatch
 is a pytree of arrays, so a checkpoint is a single NPZ; combined with
 ``trace(..., resume=True)`` a long propagation can be suspended and resumed
-across processes — including moving a batch between backends (CPU <-> TPU)
+across processes — including moving a batch between backends (CPU <-> GPU)
 or continuing a partially-traced batch after preemption.
 """
 

@@ -1,7 +1,7 @@
 """Profiler integration.
 
 The reference's only timing is std::chrono in its perf test (SURVEY.md §5);
-here any traced section can be captured as a full XLA/TPU profile readable
+here any traced section can be captured as a full XLA device profile readable
 in TensorBoard or Perfetto.
 """
 

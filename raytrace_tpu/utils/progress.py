@@ -70,9 +70,8 @@ def app_phase(label: str):
     build / march / reduction / output), report its wall time on exit, and
     — with RT_PROFILE=<dir> in the environment — capture a jax.profiler
     trace of the phase into <dir>/<label> via utils.profiling.profile_trace
-    (open in TensorBoard/xprof; SURVEY §5's TPU-native profiling
-    equivalent — the trace that exposed the round-4 compaction-gather
-    bottleneck, analysis/profiles/rk4_march_tpu)."""
+    (open in TensorBoard/xprof or Perfetto; SURVEY §5's profiling
+    equivalent)."""
     from raytrace_tpu.utils.profiling import profile_trace
 
     logdir = os.environ.get("RT_PROFILE")

@@ -78,7 +78,7 @@ def test_redshift_and_time_allclose(golden, mine):
 
 
 def test_f32_binned_consistency(golden, grid, mine):
-    """The TPU hot path computes in f32; binned observables must agree with
+    """The GPU hot path computes in f32; binned observables must agree with
     the f64 run at the same statistical level the two reference integrators
     agree with each other."""
     import raytrace_tpu.sources.pointsource as ps

@@ -1,7 +1,7 @@
-"""Pallas kernel equivalence (interpreter mode on CPU).
+"""Pallas GPU march kernel equivalence (interpreter mode on CPU).
 
-The Mosaic-compiled path is exercised on real TPU hardware by bench.py and
-the verification drives; here the kernel's *logic* is pinned against the
+The Triton-compiled kernel runs on the GPU in chip_smoke.py and in the
+``gpu``-marked test below; here the kernel's *logic* is pinned against the
 XLA integrator in Pallas interpreter mode, f32 on both sides, where results
 must agree except for f32 constant-rounding noise.
 """
@@ -66,7 +66,7 @@ def test_pallas_isco_destination():
 def test_pallas_pads_odd_batches():
     grid = PointSourceGrid.from_steps(0.6, 1.2, -0.9, 0.9, -3.0, 3.0)
     rays = _f32(point_source((0.0, 5.0, 1e-3, 0.0), V=0.0, spin=SPIN, grid=grid))
-    assert rays.n_rays % 1024 != 0
+    assert rays.n_rays % pk.BLOCK != 0
     out = pk.trace_pallas(rays, jnp.float32(SPIN), method="rk4", r_max=300.0, steplim=2000)
     assert out.n_rays == rays.n_rays
 
@@ -80,7 +80,7 @@ def test_pallas_fused_matches_single_phase():
     s = jnp.float32(SPIN)
     kw = dict(method="rk4", r_max=300.0, steplim=3000)
     a = pk.trace_pallas_fused(
-        rays, s, schedule=((64, None, 16, 2), (128, 2048, 16, 2), (5000, 1024, 8, 4)), **kw
+        rays, s, schedule=((64, None, 128, 2), (128, 2048, 64, 2), (5000, 1024, 32, 4)), **kw
     )
     b = pk.trace_pallas(rays, s, **kw)
     np.testing.assert_array_equal(np.asarray(a.status), np.asarray(b.status))
@@ -96,7 +96,7 @@ def test_pallas_fused_overflow_drains():
     s = jnp.float32(SPIN)
     kw = dict(method="rk4", r_max=300.0, steplim=3000)
     # after 8 iterations every ray is still active; width 1024 < n overflows
-    a = pk.trace_pallas_fused(rays, s, schedule=((8, None, 16, 2), (16, 1024, 8, 2)), **kw)
+    a = pk.trace_pallas_fused(rays, s, schedule=((8, None, 128, 2), (16, 1024, 32, 2)), **kw)
     b = pk.trace_pallas(rays, s, **kw)
     assert not np.asarray(a.active).any()
     np.testing.assert_array_equal(np.asarray(a.status), np.asarray(b.status))
@@ -112,7 +112,7 @@ def test_pallas_fused_compacted_first_phase_rk45():
     n_pad = -(-rays.n_rays // 1024) * 1024
     s = jnp.float32(SPIN)
     kw = dict(method="rk45", r_max=300.0, steplim=3000)
-    a = pk.trace_pallas_fused(rays, s, schedule=((5000, n_pad, 8, 2),), **kw)
+    a = pk.trace_pallas_fused(rays, s, schedule=((5000, n_pad, 32, 2),), **kw)
     b = pk.trace_pallas(rays, s, **kw)
     np.testing.assert_array_equal(np.asarray(a.status), np.asarray(b.status))
     np.testing.assert_array_equal(np.asarray(a.steps), np.asarray(b.steps))
@@ -169,3 +169,60 @@ def test_pallas_shell_and_boundary():
     # f32 capture shell is 200 ulp-floored (integrate.py::_commit)
     assert (np.asarray(a4.r)[cap] <= 2.5 * (1 + 1e-4)).all()
     assert (np.asarray(a4.r)[cap] > 2.2).all()
+
+
+@pytest.mark.parametrize("block", [64, 128, 256])
+def test_pallas_block_padding(block):
+    """Every power-of-two block pads the batch with dead rays to whole
+    programs and returns the caller's n rays, identical to the default
+    launch shape (one ray per thread: the block only groups rays)."""
+    grid = PointSourceGrid.from_steps(0.45, 0.8, -0.9, 0.9, -3.0, 3.0)
+    rays = _f32(point_source((0.0, 5.0, 1e-3, 0.0), V=0.0, spin=SPIN, grid=grid))
+    assert rays.n_rays % block != 0
+    s = jnp.float32(SPIN)
+    kw = dict(method="rk4", r_max=300.0, steplim=2000)
+    a = pk.trace_pallas(rays, s, block=block, unroll=1, **kw)
+    b = pk.trace_pallas(rays, s, **kw)
+    assert a.n_rays == rays.n_rays
+    np.testing.assert_array_equal(np.asarray(a.status), np.asarray(b.status))
+    np.testing.assert_array_equal(np.asarray(a.steps), np.asarray(b.steps))
+    np.testing.assert_array_equal(np.asarray(a.r), np.asarray(b.r))
+
+
+def test_pallas_f32_boundary_cast():
+    """The kernel marches in f32 whatever the caller's dtype, and hands the
+    results back in that dtype: f64 rays in, f64 rays out, equal to the
+    f32 march of the same rays."""
+    grid = PointSourceGrid.from_steps(0.45, 0.8, -0.9, 0.9, -3.0, 3.0)
+    rays64 = point_source((0.0, 5.0, 1e-3, 0.0), V=0.0, spin=SPIN, grid=grid)
+    # rk4: nothing is seeded in the caller's dtype before the cast (rk45
+    # seeds its adaptive step first), so the two marches start identical
+    kw = dict(method="rk4", r_max=300.0, steplim=3000)
+    a = pk.trace_pallas_fused(rays64, jnp.float64(SPIN), **kw)
+    b = pk.trace_pallas_fused(_f32(rays64), jnp.float32(SPIN), **kw)
+    for name in ("t", "r", "theta", "phi", "pr", "emit"):
+        assert getattr(a, name).dtype == jnp.float64, name
+    assert a.steps.dtype == jnp.int32 and a.r_was_positive.dtype == bool
+    np.testing.assert_array_equal(np.asarray(a.status), np.asarray(b.status))
+    np.testing.assert_array_equal(np.asarray(a.steps), np.asarray(b.steps))
+    np.testing.assert_allclose(np.asarray(a.r), np.asarray(b.r), rtol=1e-6)
+
+
+def test_default_schedule_uses_kernel_launch_shape(monkeypatch):
+    """The fused driver's schedule runs every phase, and the drain, with the
+    kernel's own block and unroll, so one compiled kernel serves it all."""
+    seen = []
+    real = pk._trace_pallas_padded
+
+    def spy(*args, **kw):
+        seen.append((kw["block"], kw["unroll"]))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(pk, "_trace_pallas_padded", spy)
+    grid = PointSourceGrid.from_steps(0.3, 0.5, -0.9, 0.9, -3.0, 3.0)
+    rays = _f32(point_source((0.0, 5.0, 1e-3, 0.0), V=0.0, spin=SPIN, grid=grid))
+    pk.trace_pallas_fused(rays, jnp.float32(SPIN), method="rk4", r_max=300.0,
+                          steplim=3000, schedule=None)
+    assert seen and set(seen) == {(pk.BLOCK, pk.UNROLL)}
+    sched = pk.auto_schedule(125_800, 37_516, block=pk.BLOCK, unroll=pk.UNROLL)
+    assert len(sched) == 2 and sched[1][1] % pk.BLOCK == 0 and sched[1][1] < 125_800

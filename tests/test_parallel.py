@@ -256,9 +256,9 @@ def test_graft_entry_points():
 
 
 def test_sharded_pallas_engine_under_shard_map(monkeypatch):
-    """On accelerator backends the shard-local engine is the Pallas kernel;
-    pin that composition here by forcing the Pallas route in interpreter
-    mode on the CPU mesh and checking against the XLA single-device march.
+    """On the GPU the shard-local engine is the Pallas Triton kernel; pin
+    that composition here by forcing the kernel route in interpreter mode
+    on the CPU mesh and checking against the XLA single-device march.
     (f32 on both sides: the kernel path is f32-only.)"""
     import jax.numpy as jnp
 
@@ -272,7 +272,7 @@ def test_sharded_pallas_engine_under_shard_map(monkeypatch):
         return real_call(*args, **kw)
 
     monkeypatch.setattr(pk.pl, "pallas_call", interp)
-    monkeypatch.setattr(sh, "_pallas_supported", lambda *a, **k: True)
+    monkeypatch.setattr(sh, "use_march_kernel", lambda *a, **k: True)
 
     grid, rays = _rays()
     rays = jax.tree.map(
